@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # host-side serving — no TPU needed
+jax.config.update("jax_platforms", "cpu")  # host-side serving, no device
 
 import numpy as np  # noqa: E402
 

@@ -1,10 +1,10 @@
-"""pikazoo_tpu — a TPU-native Pikachu Volleyball multi-agent RL framework.
+"""pikazoo_tpu — a Pikachu Volleyball multi-agent RL framework in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of ``helpingstar/pika-zoo``
 (reference mounted read-only at ``/root/reference``): the per-frame Python game
 loop becomes a pure-functional, jit-able step over an integer-typed state
-pytree, vmapped to thousands of lockstep matches and sharded over TPU pod
-slices.  See ``SURVEY.md`` for the component inventory this implements.
+pytree, vmapped to thousands of lockstep matches and sharded over a device
+mesh.  See ``SURVEY.md`` for the component inventory this implements.
 
 Layers (bottom up):
   core/         physics kernel: ball/world, player FSM, collisions, landing

@@ -113,8 +113,8 @@ def computer_decide_input(p: PlayerState, other: PlayerState, ball: BallState,
                 (candidate_landing_x >= far_side)) & \
                (jnp.abs(candidate_landing_x - other.x) > C.PLAYER_LENGTH)
     # Min over (rank * 8 + canonical index) both finds the smallest rank and
-    # carries its candidate index in the low bits — avoids argmin, whose
-    # int32 form Mosaic cannot lower inside Pallas kernels.
+    # carries its candidate index in the low bits: one min reduction instead
+    # of argmin's value-and-index pair.
     encoded = jnp.where(accepted, position, i32(99)) * 8 + c_idx
     best = jnp.min(encoded, axis=0)
     found = (best >> 3) < 99

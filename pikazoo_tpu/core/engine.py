@@ -41,15 +41,9 @@ def physics_step(
     ds: DrawState,
     is_player1_computer: bool,
     is_player2_computer: bool,
-    landing_fn=None,
 ) -> Tuple[PlayerState, PlayerState, BallState, jnp.ndarray, DrawState,
            SoundEvents]:
-    """Advance the physics one frame.  ``is_*_computer`` must be static.
-
-    ``landing_fn`` overrides the landing-sim dispatcher (default: the
-    custom_vmap-wrapped :func:`~pikazoo_tpu.core.predict.landing_sims`);
-    Pallas kernels pass the direct shape-generic impl since custom_vmap
-    cannot lower inside a kernel."""
+    """Advance the physics one frame.  ``is_*_computer`` must be static."""
     any_computer = is_player1_computer or is_player2_computer
 
     ball, touched = ball_world_step(ball)
@@ -57,7 +51,7 @@ def physics_step(
 
     candidate_landing = None
     if any_computer:
-        expected_x, candidate_landing = (landing_fn or landing_sims)(ball)
+        expected_x, candidate_landing = landing_sims(ball)
         ball = ball._replace(expected_landing_point_x=expected_x)
 
     # Player 1 (left): optional AI decision, then movement.

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax.numpy as jnp
+import numpy as np
 
 from pikazoo_tpu.core.state import PlayerInput
 
@@ -49,9 +50,10 @@ _XD = tuple(-1 if row[0] else (1 if row[1] else 0) for row in ACTION_KEY_TABLE)
 _YD = tuple(-1 if row[2] else (1 if row[3] else 0) for row in ACTION_KEY_TABLE)
 _PK = tuple(row[4] for row in ACTION_KEY_TABLE)
 
-ACTION_X_DIRECTION = jnp.asarray(_XD, jnp.int32)
-ACTION_Y_DIRECTION = jnp.asarray(_YD, jnp.int32)
-ACTION_POWER_KEY = jnp.asarray(_PK, jnp.int32)
+# numpy, so importing the package opens no device; jnp.asarray at the use.
+ACTION_X_DIRECTION = np.asarray(_XD, np.int32)
+ACTION_Y_DIRECTION = np.asarray(_YD, np.int32)
+ACTION_POWER_KEY = np.asarray(_PK, np.int32)
 
 
 def decode_action(action: jnp.ndarray, latch_prev: jnp.ndarray
@@ -61,9 +63,9 @@ def decode_action(action: jnp.ndarray, latch_prev: jnp.ndarray
     Returns the decoded :class:`PlayerInput` and the new latch value
     (= raw power key state, becoming ``power_hit_key_is_down_previous``).
     """
-    xd = ACTION_X_DIRECTION[action]
-    yd = ACTION_Y_DIRECTION[action]
-    power_key = ACTION_POWER_KEY[action]
+    xd = jnp.asarray(ACTION_X_DIRECTION)[action]
+    yd = jnp.asarray(ACTION_Y_DIRECTION)[action]
+    power_key = jnp.asarray(ACTION_POWER_KEY)[action]
     power_hit = jnp.where((latch_prev == 0) & (power_key == 1),
                           jnp.int32(1), jnp.int32(0))
     return PlayerInput(xd, yd, power_hit), power_key

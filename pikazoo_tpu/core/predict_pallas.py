@@ -1,31 +1,20 @@
-"""Pallas TPU kernel for the batched landing simulation — the hot op.
+"""Pallas (Triton route) kernel for the batched landing simulation.
 
-Why: under ``vmap``, the ``lax.while_loop`` landing sim carries seven
-``(B, 7)`` int32 arrays, and XLA materializes while-loop carries in HBM — at
-B=65536 every iteration streams ~26MB, and the loop runs to the *batch max*
-iteration count (~110 for live self-play states), costing ~16ms/frame.  This
-kernel keeps the entire loop state in VMEM: HBM traffic drops to 4 input
-words + 7 output words per env *total*, and each grid block of envs only runs
-to its own block-max iterations.  Measured (round 3, host-transfer-synced —
-the round-2 "19us/call" reading was a non-blocking-timing artifact): ~770us
-per call at B=65536 on live self-play states, bounded by the 64 sequential
-grid blocks each running to its block-max iteration count; in the full AI
-step it beats the lax fallback 75.4M vs 44.8M env-steps/s.  The block-max
-tax is the measured-final cost floor: round 5 closed the last open lever
-(live-lane compaction) with hardware numbers — perfect free ordering buys
-only 14%, the flat layout compaction needs is 1.6-2x slower than this
-kernel's 6-way cross-tile ILP layout, and applying any permutation costs
-~2.5 ms vs the 171 us best-case saving (tools/compaction_probe.py,
-docs/landing_sim_audit.md round-5 section).
+Why: under ``vmap``, the ``lax.while_loop`` landing sim keeps its carry in
+device memory and runs every lane to the *batch-max* iteration count, with a
+predicate round trip on every trip.  This kernel gives each block of
+``block`` envs its own loop: the carry stays in registers, device-memory
+traffic drops to 4 input and 7 output words per env, and each block stops at
+its OWN block-max iteration count.
 
 The simulation body is the SAME shape-generic function the lax path uses
-(``core.predict.landing_sims_any`` — iota-built constants, int32 masks), so
-kernel and fallback cannot drift; equality is additionally tested in
-interpret mode.
-
-Envs are padded to blocks of ``BLOCK_ROWS x 128`` lanes (int32 native tile);
-the 7 simulation lanes ride a leading dimension of the VMEM working set —
-``(7, BLOCK_ROWS, 128)`` ~= 28KB per array, far under the VMEM budget.
+(``core.predict.landing_sims_any``), so kernel and fallback cannot drift;
+equality is tested in interpret mode on the CPU and at full width on the
+card.  Two Triton constraints shape the call: reductions need a
+power-of-two element count, so the six candidate lanes are padded to eight
+(the pad lanes start with ``vx == 0`` and are done on entry), and the
+padding envs of the last block start below the ground, so they are done on
+their first iteration.
 """
 
 from __future__ import annotations
@@ -36,94 +25,74 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from pikazoo_tpu.core.predict import landing_sims_any
 
-import os as _os
-
-BLOCK_ROWS = int(_os.environ.get("PIKAZOO_PALLAS_ROWS", 8))
-LANES = 128
-
-
-# Sub-iterations per while trip INSIDE the kernel (0 = per-algorithm
-# default).  For the frame-by-frame loop ("iter"), swept inside the full AI
-# step on v5e (interleaved min-of-5, B=65536, 2026-08-19):
-# 2/4/8/16/32/64/128/256 -> 30.9/43.7/55.3/62.4/66.3/63.9/64.2/59.0M
-# env-steps/s — even in VMEM the per-trip cond reduction and loop plumbing
-# dominate until the masked tail waste catches up at 64+.  The event-leaping
-# loop ("leap") needs ~10x fewer trips of ~4x the arithmetic, so far fewer
-# leaps per trip are worthwhile.
-_KERNEL_UNROLL = int(_os.environ.get("PIKAZOO_PALLAS_UNROLL", 0))
-_ALGO_KERNEL_UNROLL = {"leap": 1, "iter": 32, "hyb": 32}
+# Envs per Triton program, warps per program and frame iterations per while
+# trip: the fastest of a 36-point sweep on live self-play states at
+# B = 65,536 on an H100 (tools/gpu_phases.py landing; PERF.md).
+BLOCK = 128
+NUM_WARPS = 4
+UNROLL = 8
+# Candidate lanes inside the kernel: the six power-hit candidates padded to
+# the next power of two.
+CAND_LANES = 8
+# Algorithms the kernel body accepts (``PIKAZOO_SIM_ALGO``).
+KERNEL_ALGOS = ("iter",)
 
 
-def _landing_kernel(unroll, algo, split, x_ref, y_ref, vx_ref, vy_ref,
-                    exp_ref, cand_ref):
-    expected, candidates = landing_sims_any(x_ref[:], y_ref[:], vx_ref[:],
-                                            vy_ref[:], unroll=unroll,
-                                            algo=algo, split=split)
-    exp_ref[:] = expected
-    cand_ref[:] = candidates
+def _landing_kernel(unroll, x_ref, y_ref, vx_ref, vy_ref, exp_ref, cand_ref):
+    expected, candidates = landing_sims_any(
+        x_ref[...], y_ref[...], vx_ref[...], vy_ref[...], unroll=unroll,
+        algo="iter", split="none", cand_lanes=CAND_LANES)
+    exp_ref[...] = expected
+    cand_ref[...] = candidates
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "block_rows",
-                                              "unroll", "algo", "split"))
+@functools.partial(jax.jit, static_argnames=("interpret", "block",
+                                              "num_warps", "unroll"))
 def landing_sims_batched(x: jnp.ndarray, y: jnp.ndarray, vx: jnp.ndarray,
                          vy: jnp.ndarray, interpret: bool = False,
-                         block_rows: int = 0, unroll: int = 0,
-                         algo: str | None = None, split: str | None = None
+                         block: int | None = None,
+                         num_warps: int | None = None,
+                         unroll: int | None = None
                          ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """(B,) ball state -> (expected (B,), candidates (B, 6)).
 
-    ``block_rows`` (default ``PIKAZOO_PALLAS_ROWS``) sets the envs per grid
-    block (rows x 128 lanes): grid blocks run sequentially on the core and
-    each runs its while loops to its OWN block-max iteration count, so the
-    block size trades per-op tile throughput against how often a slow lane
-    taxes its whole block."""
-    from pikazoo_tpu.core import predict as _predict
-
-    block_rows = block_rows or BLOCK_ROWS
-    if algo is None:
-        # "auto" = the frame loop ("iter"): the round-4 in-step A/B measured
-        # the event-leaping ("leap") and hybrid jump+iter ("hyb") loops at
-        # parity or worse on v5e despite ~10x fewer while trips — see
-        # docs/landing_sim_audit.md.
-        algo = _predict._ALGO if _predict._ALGO != "auto" else "iter"
-    # Mixed algos ("A,B") keep unroll=0 so each loop takes its own default.
-    unroll = unroll or _KERNEL_UNROLL or _ALGO_KERNEL_UNROLL.get(algo, 0)
-    block_envs = block_rows * LANES
+    ``block`` (a power of two, default ``BLOCK``) is the number of envs per
+    program: programs run in parallel and each runs its while loops to its
+    own block-max iteration count.  ``interpret=True`` runs the kernel on
+    the CPU (tests only)."""
+    block = block or BLOCK
+    num_warps = num_warps or NUM_WARPS
+    unroll = unroll or UNROLL
+    if block & (block - 1):
+        raise ValueError(f"block must be a power of two, got {block}")
     B = x.shape[0]
-    padded = (B + block_envs - 1) // block_envs * block_envs
-    rows = padded // LANES
+    padded = -(-B // block) * block
 
     def prep(a, fill):
-        return jnp.pad(a, (0, padded - B),
-                       constant_values=fill).reshape(rows, LANES)
+        return jnp.pad(a.astype(jnp.int32), (0, padded - B),
+                       constant_values=fill)
 
     # Padding envs start beyond the ground (y > 252): done on iteration 1.
     xp, yp = prep(x, 216), prep(y, 10_000)
     vxp, vyp = prep(vx, 0), prep(vy, 0)
 
-    grid = rows // block_rows
+    env_spec = pl.BlockSpec((block,), lambda i: (i,))
     exp, cand = pl.pallas_call(
-        functools.partial(_landing_kernel, unroll, algo, split),
-        grid=(grid,),
-        in_specs=[pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)] * 4,
-        out_specs=[
-            pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((6, block_rows, LANES), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((rows, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((6, rows, LANES), jnp.int32),
-        ],
+        functools.partial(_landing_kernel, unroll),
+        grid=(padded // block,),
+        in_specs=[env_spec] * 4,
+        out_specs=[env_spec,
+                   pl.BlockSpec((CAND_LANES, block), lambda i: (0, i))],
+        out_shape=[jax.ShapeDtypeStruct((padded,), jnp.int32),
+                   jax.ShapeDtypeStruct((CAND_LANES, padded), jnp.int32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                    num_stages=1),
         interpret=interpret,
+        name="landing_sims",
     )(xp, yp, vxp, vyp)
-
-    expected = exp.reshape(-1)[:B]
-    candidates = jnp.moveaxis(cand.reshape(6, -1)[:, :B], 0, 1)  # (B, 6)
-    return expected, candidates
+    return exp[:B], jnp.moveaxis(cand[:6, :B], 0, 1)

@@ -2,7 +2,7 @@
 
 The reference threads a single ``np.random.Generator`` through physics, AI and
 serve selection, drawing *conditionally* inside data-dependent branches
-(SURVEY.md section 2.3 lists every draw site).  A traced TPU program evaluates
+(SURVEY.md section 2.3 lists every draw site).  A traced XLA program evaluates
 both sides of every branch, so conditional host-style consumption cannot be
 expressed directly.  Instead each potential draw site evaluates a value from a
 counted stream and advances the counter only when the reference would

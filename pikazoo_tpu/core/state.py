@@ -7,7 +7,7 @@ homogeneous integer pytree — cheap to checkpoint, shard, and ``jnp.where`` on.
 Field meanings mirror the reference state classes (``Player`` at
 ``pikazoo/env/physics.py:140-218``, ``Ball`` at ``physics.py:221-277``) but the
 representation — an immutable NamedTuple updated with ``_replace`` inside pure
-functions — is TPU-native, not a port of the mutable objects.
+functions — is built for jit/vmap, not a port of the mutable objects.
 """
 
 from __future__ import annotations

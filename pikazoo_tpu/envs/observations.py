@@ -75,13 +75,11 @@ def assemble_obs(p1: PlayerState, p2: PlayerState, b: BallState,
 # ---------------------------------------------------------------------------
 # Learner fast path: normalized bf16 observation rows assembled DIRECTLY from
 # batched state leaves.  The standard path materializes a per-frame
-# (B, 2, 35) int32 tensor whose TPU tiling pads the trailing (2, 35) dims to
-# (8, 128) — a ~15x physical blowup that the PPO rollout pays twice per frame
+# (B, 2, 35) int32 tensor that the PPO rollout would pay for twice per frame
 # (assembly write + normalize read).  Stacking per-field (B,) leaves straight
-# into normalized (B, 35) rows keeps the batch dim on the sublanes and the
-# 35-dim on the lanes once, with the normalization arithmetic fused into the
-# stack.  Row layout is SEAT-BLOCKED: rows [0, B) are player 1's view,
-# [B, 2B) player 2's.
+# into normalized rows writes the learner's bf16 layout once, with the
+# normalization arithmetic fused into the stack.  Row layout is SEAT-BLOCKED:
+# rows [0, B) are player 1's view, [B, 2B) player 2's.
 
 _LOW_F = OBS_LOW.astype(np.float32)
 _SPAN_F = (OBS_HIGH - OBS_LOW).astype(np.float32)
@@ -108,8 +106,7 @@ def assemble_norm_obs_blocked(p1: PlayerState, p2: PlayerState, b: BallState,
 
     ``p1``/``p2``/``b`` are BATCHED state pytrees ((B,) leaves); ``latch`` is
     the (B, 2) power-hit latch.  Equals
-    ``normalize(vmap(assemble_obs)(...))`` re-ordered seat-blocked (tested in
-    ``tests/test_fused_update.py``).
+    ``normalize(vmap(assemble_obs)(...))`` re-ordered seat-blocked.
     """
     def seat(me, opp, latch_me, latch_opp):
         cols = _player_cols(me, latch_me) + _player_cols(opp, latch_opp) \
@@ -131,10 +128,8 @@ def assemble_norm_obs_fm(p1: PlayerState, p2: PlayerState, b: BallState,
     """(35, 2B) bfloat16 normalized mirrored observations, FEATURE-MAJOR.
 
     Same columns as :func:`assemble_norm_obs_blocked` but stacked on axis 0,
-    so the env batch rides the 128-wide vector lanes: per-action/per-feature
-    reductions downstream become cheap sublane ops instead of padded
-    cross-lane ones, and the layout feeds the feature-major fused PPO
-    gradient kernel with no transpose.  ``assemble_norm_obs_fm(...) ==
+    so the env batch is the minor dimension and per-action reductions in the
+    rollout run over the leading axis.  ``assemble_norm_obs_fm(...) ==
     assemble_norm_obs_blocked(...).T`` exactly (same per-column arithmetic).
     """
     def seat(me, opp, latch_me, latch_opp):

@@ -1,6 +1,6 @@
 """The functional Pikachu Volleyball environment.
 
-This is the TPU-native counterpart of the reference's ``raw_env`` PettingZoo
+This is the JAX counterpart of the reference's ``raw_env`` PettingZoo
 class (``pikazoo_env.py:72-248``): ``reset`` and ``step`` are pure, jit-able
 functions over an integer state pytree.  One call to :meth:`PikaZoo.step`
 advances one frame for both agents; ``jax.vmap`` runs B independent matches in
@@ -102,15 +102,15 @@ class FrameResult(NamedTuple):
 def env_frame(cfg: "EnvConfig", ds: DrawState, p1: PlayerState,
               p2: PlayerState, ball: BallState, score1, score2,
               is_player2_serve, round_ended, game_ended,
-              inp1, inp2, landing_fn=None) -> FrameResult:
+              inp1, inp2) -> FrameResult:
     """One full environment frame on scalar (or any-shaped) int32 leaves.
 
     The single source of truth for the env-level semantics — lazy round /
     auto game reset with its draw consumption (``pikazoo_env.py:176-180``),
     serve selection (``:242-248``), physics, scoring (``:190-210``) and the
-    zero-sum reward — shared by :meth:`PikaZoo.step` (scalar leaves under
-    vmap) and the fused multi-frame Pallas kernel ((rows, lanes) leaves).
-    Inputs must already be decoded (:func:`..core.input.decode_action`)."""
+    zero-sum reward — used by :meth:`PikaZoo.step` (scalar leaves under
+    vmap).  Inputs must already be decoded
+    (:func:`..core.input.decode_action`)."""
     i32 = jnp.int32
 
     game_reset = (game_ended == 1) if cfg.auto_reset \
@@ -150,8 +150,7 @@ def env_frame(cfg: "EnvConfig", ds: DrawState, p1: PlayerState,
 
     p1, p2, ball, touched, ds, sounds = physics_step(
         p1, p2, ball, inp1, inp2, ds,
-        cfg.is_player1_computer, cfg.is_player2_computer,
-        landing_fn=landing_fn)
+        cfg.is_player1_computer, cfg.is_player2_computer)
 
     score_event = (touched == 1) & (round_ended == 0) & (game_ended == 0)
     p2_scored = ball.punch_effect_x < C.GROUND_HALF_WIDTH
@@ -190,7 +189,7 @@ class TimeStep(NamedTuple):
 
 
 class PikaZoo:
-    """Functional two-agent Pikachu Volleyball on TPU.
+    """Functional two-agent Pikachu Volleyball, batched with ``vmap``.
 
     >>> env = PikaZoo(EnvConfig())
     >>> state, ts = env.reset(jax.random.key(0))
@@ -346,9 +345,8 @@ class PikaZoo:
         ``norm_obs`` is (2B, 35) bfloat16 seat-BLOCKED (rows [0, B) are
         player 1's view — see ``assemble_norm_obs_blocked``), ``reward_p1``
         is (B,) int32 (player 2's reward is its negation) and ``terminated``
-        is (B,) int32.  Used by the PPO rollout: the standard ``step_batch``
-        obs tensor's trailing (2, 35) dims tile-pad to (8, 128) on TPU, a
-        ~15x physical blowup paid twice per frame.
+        is (B,) int32.  It skips the standard ``step_batch``'s (B, 2, 35)
+        int32 obs tensor.
         """
         new_state, fr = jax.vmap(self._advance)(state, a1, a2)
         norm_obs = assemble_norm_obs_blocked(
@@ -362,9 +360,9 @@ class PikaZoo:
                                          jnp.ndarray]:
         """Like :meth:`step_batch_learner` but the normalized observations
         come back FEATURE-MAJOR, (35, 2B) bfloat16 (seat-blocked columns:
-        [0, B) are player 1's view) — the env batch on the vector lanes.
-        This is the layout the PPO rollout and the feature-major fused
-        gradient kernel consume; see ``assemble_norm_obs_fm``."""
+        [0, B) are player 1's view) — the env batch as the minor dimension.
+        This is the layout the PPO rollout stores; see
+        ``assemble_norm_obs_fm``."""
         new_state, fr = jax.vmap(self._advance)(state, a1, a2)
         norm_obs = assemble_norm_obs_fm(
             new_state.p1, new_state.p2, new_state.ball,

@@ -4,7 +4,7 @@
 // the JAX kernel (see pikazoo_tpu/core/*.py for the authoritative semantics
 // and the reference citations).  Used as (1) a high-throughput multicore CPU
 // engine and (2) an independent second implementation for fuzz-parity testing
-// against the TPU kernel: both consume identical oracle draw streams, so any
+// against the JAX env: both consume identical oracle draw streams, so any
 // state divergence is a logic bug in one of them.
 //
 // Build: g++ -O3 -march=native -shared -fPIC [-fopenmp] pika_engine.cc

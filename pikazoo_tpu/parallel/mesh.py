@@ -2,8 +2,8 @@
 
 The env step is embarrassingly parallel over matches, so the scaling design
 is one named mesh axis, ``env``: the batch dimension of every state leaf is
-sharded across all devices of the slice (ICI within a host, DCN across
-hosts), parameters are replicated, and the only collectives in the system are
+sharded across all devices (every card of a host reaches every other over
+NVLink), parameters are replicated, and the only collectives in the system are
 the gradient all-reduces XLA inserts for the learner (see ``train/ppo.py``).
 No hand-written transport: ``jax.distributed.initialize`` + ``Mesh`` +
 ``NamedSharding`` under ``jit`` is the whole communication backend (the
@@ -21,16 +21,19 @@ ENV_AXIS = "env"
 
 
 def init_distributed(**kwargs) -> None:
-    """Initialize the multi-host JAX runtime (no-op on a single host).
+    """Initialize the multi-process JAX runtime.
 
-    Call once at program start on every host of the pod slice; coordinator
-    address etc. are picked up from the TPU environment or can be passed
-    through ``kwargs`` (forwarded to ``jax.distributed.initialize``)."""
+    Call once at program start in every process, before any device is
+    used.  ``kwargs`` go to ``jax.distributed.initialize``: on a machine
+    that tells JAX of no cluster, pass ``coordinator_address``
+    (``host:port`` of process 0), ``num_processes`` and ``process_id``.
+    A second call in the same process is a no-op; any other failure
+    raises, so a failed start never runs single-process."""
     try:
         jax.distributed.initialize(**kwargs)
-    except (ValueError, RuntimeError):
-        # Already initialized, or single-process environment.
-        pass
+    except RuntimeError as e:
+        if "should only be called once" not in str(e):
+            raise
 
 
 def make_env_mesh(devices: Optional[Sequence[jax.Device]] = None) -> Mesh:

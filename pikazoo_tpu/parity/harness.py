@@ -1,4 +1,4 @@
-"""Parity harness: record the reference env, replay on the TPU env.
+"""Parity harness: record the reference env, replay on the JAX env.
 
 The correctness gate (BASELINE.md) is bitwise trajectory parity at batch=1:
 35-dim observations, rewards, terminations and serve rotation, frame by frame
@@ -9,7 +9,7 @@ generator on-device is pointless, so parity splits into two halves:
 1. **Record**: run the reference env with a :class:`SpyGenerator` spliced into
    every ``np_random`` reference (env, physics pack, both players), logging
    each ``integers`` draw in order alongside the full trajectory.
-2. **Replay**: drive the TPU env in oracle mode (``core.rng``), feeding the
+2. **Replay**: drive the JAX env in oracle mode (``core.rng``), feeding the
    recorded draw values through the draw-slot counter.  Equality of the
    per-frame draw *counter* with the recorded draw count proves the masked
    conditional-consumption machinery consumes exactly when the reference did;

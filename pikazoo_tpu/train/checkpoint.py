@@ -92,7 +92,7 @@ def latest_restorable(path: str) -> str | None:
 def restore(path: str, like: Any) -> Any:
     """Restore a checkpoint; ``like`` provides the pytree structure AND the
     target shardings (e.g. the output of ``init_fn``) — so a checkpoint saved
-    on one topology (TPU) restores onto another (CPU) without relying on the
+    on one topology (a GPU) restores onto another (CPU) without relying on the
     recorded device layout."""
     import orbax.checkpoint as ocp  # noqa: PLC0415
     path = os.path.abspath(path)

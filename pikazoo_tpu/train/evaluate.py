@@ -53,7 +53,7 @@ def evaluate_vs_computer(network, params, *, num_envs: int = 512,
             else:
                 a1 = jax.random.categorical(sub, logits).astype(jnp.int32)
             if simplify_actions:
-                a1 = SIMPLIFY_P1[a1]
+                a1 = jnp.asarray(SIMPLIFY_P1)[a1]
             actions = jnp.stack([a1, jnp.zeros_like(a1)], axis=1)
             state, ts = env.step_batch(state, actions)
             done = ts.terminated == 1
@@ -123,7 +123,7 @@ def evaluate_head_to_head(network_a, params_a, network_b, params_b, *,
                 a = jnp.argmax(logits, -1).astype(jnp.int32)
             else:
                 a = jax.random.categorical(sub, logits).astype(jnp.int32)
-            return table[a] if table is not None else a
+            return jnp.asarray(table)[a] if table is not None else a
 
         def body(carry, _):
             state, obs, key = carry

@@ -5,18 +5,15 @@ share the policy; each seat contributes a trajectory, so the learner batch is
 ``T x 2B``), GAE, and several clipped-PPO epochs — all inside a single
 ``jit``.  Sharding: env state / trajectories are split along the batch axis
 of the device mesh; parameters and optimizer state are replicated.  The
-rollout and the fused minibatch gradient each run under ``shard_map`` with
-a device-LOCAL seat-blocked layout, so the only collectives in the whole
-train step are gradient/loss ``psum``s (asserted from the compiled HLO in
-``tests/test_perf_contract.py``); meshed action sampling slices each
-shard's columns out of the global uniform row, so meshed and single-device
-training are bit-matched.
+rollout runs under ``shard_map`` with a device-LOCAL seat-blocked layout,
+so the rollout has no collectives and the train step's only collectives
+are the gradient/loss all-reduces XLA inserts (asserted from the compiled
+HLO in ``tests/test_perf_contract.py``); meshed action sampling slices
+each shard's columns out of the global uniform row, so meshed and
+single-device training are bit-matched.
 
-TPU layout note: all learner tensors keep the (huge) folded batch axis as
-the minor-most dimension wherever there is no feature axis — a trailing
-seat/feature axis of 2 would be padded to the 128-wide vector lanes and
-multiply HBM traffic up to 64x (measured: the pre-fold update phase was 12x
-slower).  See ``Transition``.
+Layout: the learner tensors fold the seat axis into the batch axis and keep
+that batch axis minor-most (see ``Transition``).
 
 Minibatches are formed by shuffling and splitting the TIME axis while keeping
 the (sharded) batch axis intact, so the update phase needs no resharding
@@ -57,42 +54,19 @@ class PPOConfig:
     update_epochs: int = 4
     num_minibatches: int = 4  # splits the time axis
     hidden: Tuple[int, ...] = (256, 256)
-    activation: str = "tanh"  # "relu" trades the PPO-conventional tanh for
-    # a cheaper VPU op (see networks.ActorCritic)
+    activation: str = "tanh"  # or "relu" (see networks.ActorCritic)
     # "both": symmetric self-play, both seats feed the learner.
     # "p1": only seat 1's trajectory trains (e.g. vs the rule AI on seat 2 —
     # pass an env with is_player2_computer=True; the AI ignores seat-2 input).
     learner_seats: str = "both"
-    # Minibatch gradients via the fused Pallas kernel (train/fused_update.py):
-    # one HBM pass instead of per-layer activation round trips.  "auto" =
-    # the feature-major kernel when running on TPU (measured ~2x the full
-    # train step vs XLA autodiff on v5e), XLA autodiff elsewhere; "off" =
-    # XLA autodiff; "fm" = feature-major always; "on" = row-major always
-    # (slower on TPU — kept as the layout A/B).  Off-TPU the forced modes
-    # run interpret-mode (test use only).  The fused paths accumulate
-    # matmuls in f32, so they are not bitwise-identical to the bf16 XLA
-    # path.
-    fused_update: str = "auto"
-    # int8 MXU operands inside the feature-major fused kernel: "none"
-    # (bf16, default), "int8fwd" (forward dots int8, stock bf16 backward)
-    # or "int8" (heavy backward dots int8 too, dynamic per-tile scales).
-    # Measured on v5e (tools/fm_variants_probe.py, 2026-08-20): the MXU
-    # runs int8 at 2x bf16 (matmuls-only probe 1.47x) but the per-layer
-    # requantization sits on the matmul critical path, so end-to-end the
-    # grad step moves 18.65 -> 18.10 ms (int8fwd, +3%) / 19.35 (int8, -4%).
-    # Gradient fidelity: cos >= 0.997 per tensor vs the bf16 kernel.
-    # Kept as validated opt-in modes; requires activation="tanh" and the
-    # feature-major kernel.
-    update_quant: str = "none"
     # Shuffle the trajectory's time axis before the minibatch split.  Each
     # minibatch already mixes T_mb frames x 2B env-seats (millions of
     # near-i.i.d. rows), so the frame-level shuffle adds no measurable
     # decorrelation at this scale — vs-AI training reaches the same 100%
     # win rate by update 250 with or without it (artifacts/
-    # fm_vs_ai_training.jsonl vs noshuffle run, 2026-08-17) — while its
-    # gather materializes a full trajectory copy (~1.5 GB at 65536 envs,
-    # ~110 ms/update on v5e, -24% train-step throughput).  Default OFF;
-    # turn on for textbook-PPO epoch semantics.
+    # fm_vs_ai_training.jsonl vs noshuffle run) — while its gather
+    # materializes a full trajectory copy (~1.5 GB at 65536 envs).  Default
+    # OFF; turn on for textbook-PPO epoch semantics.
     shuffle_minibatches: bool = False
 
 
@@ -101,14 +75,9 @@ class Transition(NamedTuple):
     leaves are (2B,) / (2B, 35), seat-BLOCKED (rows [0, B) are seat 1,
     [B, 2B) seat 2 — the layout ``env.step_batch_learner`` emits; on a
     mesh the blocking is per DEVICE SHARD, since the rollout runs under
-    shard_map — every consumer is column-order-agnostic).  TPU
-    layouts map the minor-most dimension to the 128-wide vector lanes, so a
-    trailing seat axis of 2 would pad every materialized learner buffer up
-    to 64x — folding it is what lets the update phase run at memory speed."""
+    shard_map — every consumer is column-order-agnostic)."""
 
     obs: jnp.ndarray       # (35, 2B) normalized bfloat16, FEATURE-MAJOR
-                           # (env batch on the vector lanes; fed unchanged
-                           # to the feature-major fused gradient kernel)
     action: jnp.ndarray    # (2B,)
     log_prob: jnp.ndarray  # (2B,)
     value: jnp.ndarray     # (2B,)
@@ -145,10 +114,9 @@ def gae_associative(value: jnp.ndarray, reward: jnp.ndarray,
     GAE is the first-order linear recurrence
       ``gae_t = delta_t + (gamma * lam * not_done_t) * gae_{t+1}``,
     evaluated with an ASSOCIATIVE scan: a sequential lax.scan issues T tiny
-    kernels over the (2B,) learner batch (measured ~100 ms of the train step
-    at T=128, B=65536); the associative form is O(log T) full-buffer passes
-    (~ms).  Float reassociation makes it differ from the sequential scan
-    only at rounding level (tested to 1e-5 in test_train_ppo.py, which
+    kernels over the (2B,) learner batch; the associative form is O(log T)
+    full-buffer passes.  Float reassociation makes it differ from the
+    sequential scan only at rounding level (tested to 1e-5 in test_train_ppo.py, which
     exercises THIS function)."""
     not_done = 1.0 - done                                  # (T, 2B)
     next_value = jnp.concatenate([value[1:], last_value[None]], axis=0)
@@ -167,6 +135,41 @@ def gae_associative(value: jnp.ndarray, reward: jnp.ndarray,
     _, y = jax.lax.associative_scan(combine, (a, b), axis=0)
     advantages = jnp.flip(y, axis=0)
     return advantages, advantages + value
+
+
+def reference_loss(params, batch: Transition, advantages, targets,
+                   cfg: PPOConfig):
+    """Float32 transcription of the trainer's minibatch loss — the plain
+    reference its bf16 XLA gradient is checked against.
+
+    Written independently of ``networks.ActorCritic``: float32 operands and
+    activations, matmuls at ``highest`` precision (no TF32), a gather for
+    the action log-prob.  Returns the total loss."""
+    with jax.default_matmul_precision("highest"):
+        dense = params["params"]
+        names = sorted(dense, key=lambda s: int(s.rsplit("_", 1)[1]))
+        h = jnp.swapaxes(batch.obs, -2, -1).astype(jnp.float32)
+        act = jax.nn.relu if cfg.activation == "relu" else jnp.tanh
+        for n in names[:-2]:
+            h = act(h @ dense[n]["kernel"] + dense[n]["bias"])
+        logits = h @ dense[names[-2]]["kernel"] + dense[names[-2]]["bias"]
+        value = (h @ dense[names[-1]]["kernel"]
+                 + dense[names[-1]]["bias"])[..., 0]
+    log_probs = jax.nn.log_softmax(logits)
+    log_prob = jnp.take_along_axis(log_probs, batch.action[..., None],
+                                   axis=-1)[..., 0]
+    ratio = jnp.exp(log_prob - batch.log_prob)
+    adv = (advantages - advantages.mean()) / (advantages.std() + 1e-8)
+    policy_loss = -jnp.minimum(
+        ratio * adv,
+        jnp.clip(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv).mean()
+    value_clipped = batch.value + jnp.clip(value - batch.value,
+                                           -cfg.clip_eps, cfg.clip_eps)
+    value_loss = 0.5 * jnp.maximum((value - targets) ** 2,
+                                   (value_clipped - targets) ** 2).mean()
+    entropy = -(jnp.exp(log_probs) * log_probs).sum(-1).mean()
+    return policy_loss + cfg.value_coef * value_loss \
+        - cfg.entropy_coef * entropy
 
 
 def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
@@ -209,9 +212,7 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
     def policy_sample(params, norm_obs_fm, u):
         # FEATURE-MAJOR policy step: obs (F, 2B) -> logits (A, 2B), so all
         # per-action math (softmax, sampling, log-prob select) reduces over
-        # the SUBLANE axis.  The row-major layout put A=18 on the 128-wide
-        # lanes — its padded cross-lane argmax alone was 27 ms of a 50 ms
-        # rollout in the device profile.
+        # the leading axis.
         from pikazoo_tpu.train.networks import apply_fm
 
         logits, value = apply_fm(params, norm_obs_fm,
@@ -220,9 +221,8 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
         # Inverse-CDF sampling with ONE uniform per column instead of
         # jax.random.categorical's (A, 2B) gumbel tensor (18x the bits).
         p = jnp.exp(log_probs.astype(jnp.float32))
-        # Prefix-sum over the A=18 sublanes as a tiny triangular matmul:
-        # jnp.cumsum lowers to reduce-window (12 ms/rollout in the device
-        # profile); the (A, A) @ (A, 2B) dot rides the MXU instead.
+        # Prefix-sum over the A=18 actions as a tiny triangular matmul
+        # ((A, A) @ (A, 2B)) instead of jnp.cumsum's reduce-window.
         tri = jnp.tril(jnp.ones((cfg.num_actions, cfg.num_actions),
                                 jnp.float32))
         cdf = jax.lax.dot_general(tri, p, (((1,), (0,)), ((), ())),
@@ -244,9 +244,8 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
         # Learner fast path (env.step_batch_learner): the env hands back
         # normalized bf16 seat-BLOCKED (2B, 35) rows directly (stored as-is
         # in the trajectory, so update-phase log-probs recompute from
-        # bit-identical network inputs).  The standard step's (B, 2, 35)
-        # int32 obs tensor tile-pads ~15x on TPU and the rollout would pay
-        # that twice per frame (assembly write + normalize read).
+        # bit-identical network inputs) without materializing the standard
+        # step's (B, 2, 35) int32 obs tensor.
         num_envs = obs.shape[0]
         norm0 = jnp.concatenate(
             [normalize_obs(obs[:, 0]).T, normalize_obs(obs[:, 1]).T],
@@ -300,10 +299,10 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
         # two seats on different devices — the [p1 | p2] column halves vs
         # the contiguous env sharding — and the compiler inserted 21
         # all-gathers + 6 collective-permutes per train step to
-        # redistribute at every seat-pairing op; measured 27x rollout
-        # slowdown at 2 processes on the localhost mesh.)  Globally the
+        # redistribute at every seat-pairing op; a 27x rollout slowdown at
+        # 2 processes on the localhost CPU mesh.)  Globally the
         # learner columns become per-DEVICE-blocked; every consumer
-        # (fused kernel, GAE, loss means) is column-order-agnostic, and
+        # (GAE, loss means) is column-order-agnostic, and
         # the seat() selector below is shard_map'd to match.
         _ax = mesh.axis_names[0]
         from jax.sharding import PartitionSpec as _P
@@ -328,18 +327,17 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
 
     # ---------------------------------------------------------------- loss --
     def _select_log_prob(log_probs, action):
-        # One-hot contraction instead of take_along_axis: gather along the
-        # minor dimension lowers poorly on TPU (and its backward is a
-        # scatter) — measured 2x slower than the masked sum for the whole
-        # fwd+bwd minibatch step.
+        # One-hot contraction instead of take_along_axis, whose backward is
+        # a scatter.
         one_hot = jax.nn.one_hot(action, cfg.num_actions,
                                  dtype=log_probs.dtype)
         return (log_probs * one_hot).sum(-1)
 
     def loss_fn(params, batch: Transition, advantages, targets):
-        # batch.obs is feature-major (..., 35, 2B); the flax module wants
-        # the feature dim minor.  This path only runs with fused_update
-        # off (CPU tests / explicit opt-out), so the transpose is fine.
+        # The production minibatch loss (XLA autodiff).  batch.obs is
+        # feature-major (..., 35, 2B) and the network wants the feature dim
+        # minor, so every minibatch is transposed here; what that costs on
+        # the GPU is measured in PERF.md.
         logits, value = network.apply(params,
                                       jnp.swapaxes(batch.obs, -2, -1),
                                       pre_normalized=True)
@@ -360,95 +358,9 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
         approx_kl = ((ratio - 1) - jnp.log(ratio)).mean()
         return total, (policy_loss, value_loss, entropy, approx_kl)
 
-    # ------------------------------------------------------ update dispatch --
-    # Hoisted out of train_step so the phase probes (scaling harness) can
-    # time the exact minibatch-gradient program the train step runs.
-    if cfg.fused_update in ("on", "fm"):
-        use_fused = True
-        fused_interpret = jax.default_backend() != "tpu"
-        fused_fm = cfg.fused_update == "fm"
-    elif cfg.fused_update == "auto":
-        # Hardware-measured (v5e, 65536 envs, 2026-08-17): the feature-
-        # major kernel nearly halves the full train step vs XLA autodiff
-        # (16.6M vs 8.5M env-steps/s); the row-major kernel REGRESSES it
-        # (6.7M — its (G, R, 1) per-row scalar blocks pad 128x in HBM).
-        # So auto = feature-major on TPU, XLA autodiff elsewhere.
-        use_fused = jax.default_backend() == "tpu"
-        fused_interpret = False
-        fused_fm = True
-    else:
-        use_fused, fused_interpret, fused_fm = False, False, False
-    if cfg.update_quant != "none" and not (use_fused and fused_fm):
-        # int8 modes exist only in the feature-major kernel; silently
-        # running bf16 would corrupt any quant-vs-bf16 A/B the user
-        # believes they are running.
-        raise ValueError(
-            f"update_quant={cfg.update_quant!r} requires the feature-major "
-            f"fused kernel, but fused_update={cfg.fused_update!r} resolved "
-            f"to {'fm' if fused_fm else ('row-major' if use_fused else 'xla')}"
-            f" on backend {jax.default_backend()!r}; set fused_update='fm'")
-
-    def _fused_minibatch_grads(params, mtraj, madv, mtarget):
-        from pikazoo_tpu.train.fused_update import (fused_ppo_grads,
-                                                    fused_ppo_grads_fm)
-
-        adv_n = (madv - madv.mean()) / (madv.std() + 1e-8)
-        kw = dict(num_actions=cfg.num_actions,
-                  activation=cfg.activation, clip_eps=cfg.clip_eps,
-                  value_coef=cfg.value_coef,
-                  entropy_coef=cfg.entropy_coef,
-                  interpret=fused_interpret)
-        if fused_fm:
-            kw["quant"] = cfg.update_quant
-        data = (mtraj.obs, mtraj.action, mtraj.log_prob, mtraj.value,
-                adv_n, mtarget)
-        total_rows = mtraj.action.shape[0] * mtraj.action.shape[1]
-        # obs is feature-major (T_mb, F, 2B); the row-major kernel and
-        # its (M, F) flatten need it transposed back first.
-        def rm_flat(leaves):
-            obs = jnp.swapaxes(leaves[0], 1, 2)
-            flat = lambda x: x.reshape(-1, *x.shape[2:])
-            return tuple(map(flat, (obs,) + leaves[1:]))
-
-        if mesh is None:
-            if fused_fm:
-                # Feature-major path consumes the minibatch as-is; the
-                # kernel grids over frames x env columns.
-                return fused_ppo_grads_fm(params, *data, **kw)
-            return fused_ppo_grads(params, *rm_flat(data), **kw)
-
-        # Mesh path: the learner-batch axis (dim 1 of every (T_mb, 2B,
-        # ...) leaf) is sharded; flatten LOCALLY inside shard_map (a
-        # global flatten of a dim-1-sharded array would interleave
-        # shards) and psum the grad/loss partials, which the kernel
-        # pre-scales by 1/total_rows.
-        from jax.sharding import PartitionSpec as P
-        axis = mesh.axis_names[0]
-
-        def local_grads(p, *leaves):
-            if fused_fm:
-                grads, losses = fused_ppo_grads_fm(
-                    p, *leaves, total_rows=total_rows, **kw)
-            else:
-                grads, losses = fused_ppo_grads(
-                    p, *rm_flat(leaves), total_rows=total_rows, **kw)
-            grads = jax.tree.map(lambda x: jax.lax.psum(x, axis), grads)
-            return grads, jax.lax.psum(losses, axis)
-
-        # Every leaf shards its trailing env axis: (T_mb, 2B) scalars on
-        # dim 1, the feature-major (T_mb, F, 2B) obs on dim 2.
-        return jax.shard_map(
-            local_grads, mesh=mesh,
-            in_specs=(P(), P(None, None, axis)) + (P(None, axis),) * 5,
-            out_specs=(P(), P()),
-            check_vma=False)(params, *data)
-
     def minibatch_grads(params, mtraj, madv, mtarget):
-        """The exact minibatch-gradient program train_step runs (fused
-        Pallas or XLA autodiff, with the mesh psum when configured).
-        Returns ``(grads, losses[5])``."""
-        if use_fused:
-            return _fused_minibatch_grads(params, mtraj, madv, mtarget)
+        """The exact minibatch-gradient program train_step runs.  Returns
+        ``(grads, losses[5])``."""
         (total, aux), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(params, mtraj, madv, mtarget)
         return grads, jnp.stack([total, *aux])
@@ -465,7 +377,7 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
         # Raw-obs view of the final state for PPORunnerState.last_obs (one
         # assembly per train step; the rollout itself never builds it).
         # Carrying the (35, 2B) bf16 last_norm in the runner instead would
-        # also skip the next rollout's re-normalization (~1 ms/step), but
+        # also skip the next rollout's re-normalization, but
         # it changes the checkpoint pytree and breaks restore of existing
         # artifacts — deliberately not done.
         last_obs = jax.vmap(assemble_obs)(
@@ -506,11 +418,6 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
             perm = jax.random.permutation(perm_key, cfg.rollout_length)
             batch = jax.tree.map(lambda x: x[perm], batch)
 
-        # Under a mesh a bare pallas_call would be lowered as an
-        # unpartitioned custom call (replicating the minibatch), so the
-        # mesh path wraps the kernel in shard_map over the learner-batch
-        # axis and psums the grad/loss partials (see _fused_minibatch_grads
-        # in the update-dispatch section above).
         def epoch(carry, _):
             params, opt_state = carry
 
@@ -551,20 +458,11 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(),
                                 runner.update_index + 1)
         return runner, metrics
 
-    # Phase probes for the scaling/throughput harness (tools/
-    # multihost_scale.py): the exact rollout and minibatch-gradient programs
-    # train_step runs, exposed as attributes so the harness can time each
-    # phase under the same mesh without duplicating the trainer internals.
+    # Phase probes for the measurement tools (tools/gpu_phases.py,
+    # tools/multihost_scale.py): the exact rollout and minibatch-gradient
+    # programs train_step runs, exposed as attributes so a harness can time
+    # each phase without duplicating the trainer internals.
     train_step.rollout_fn = rollout
     train_step.minibatch_grads_fn = minibatch_grads
     train_step.tx = tx
-    # Resolved update-dispatch provenance ("auto" is decided above at build
-    # time); bench.py records this so the artifact says which kernel served.
-    train_step.provenance = {
-        "fused_update": ("fm" if use_fused and fused_fm
-                         else "row" if use_fused else "xla"),
-        "configured": cfg.fused_update,
-        "update_quant": cfg.update_quant,
-        "backend": jax.default_backend(),
-    }
     return init_fn, train_step, network

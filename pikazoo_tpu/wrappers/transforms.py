@@ -37,11 +37,12 @@ import numpy as np
 
 from pikazoo_tpu.envs.observations import OBS_HIGH, OBS_LOW
 
-# Per-agent 13 -> 18 action maps (reference simplify_action.py:16-20).
-SIMPLIFY_P1 = jnp.asarray((0, 1, 2, 3, 4, 6, 7, 10, 11, 12, 13, 14, 16),
-                          jnp.int32)
-SIMPLIFY_P2 = jnp.asarray((0, 1, 2, 4, 3, 7, 6, 10, 12, 11, 13, 15, 17),
-                          jnp.int32)
+# Per-agent 13 -> 18 action maps (reference simplify_action.py:16-20);
+# numpy, so importing the package opens no device.
+SIMPLIFY_P1 = np.asarray((0, 1, 2, 3, 4, 6, 7, 10, 11, 12, 13, 14, 16),
+                         np.int32)
+SIMPLIFY_P2 = np.asarray((0, 1, 2, 4, 3, 7, 6, 10, 12, 11, 13, 15, 17),
+                         np.int32)
 
 
 class _Wrapper:
@@ -77,7 +78,8 @@ class SimplifyAction(_Wrapper):
     num_actions = 13
 
     def step(self, state, actions, oracle=None):
-        mapped = jnp.stack([SIMPLIFY_P1[actions[0]], SIMPLIFY_P2[actions[1]]])
+        mapped = jnp.stack([jnp.asarray(SIMPLIFY_P1)[actions[0]],
+                            jnp.asarray(SIMPLIFY_P2)[actions[1]]])
         return self.env.step(state, mapped, oracle)
 
 
@@ -123,8 +125,8 @@ class RewardInNormalState(_Wrapper):
 class NormalizeObservation(_Wrapper):
     """Min-max normalize observations to [0, 1] float32."""
 
-    _low = jnp.asarray(OBS_LOW, jnp.float32)
-    _span = jnp.asarray(np.asarray(OBS_HIGH) - np.asarray(OBS_LOW), jnp.float32)
+    _low = np.asarray(OBS_LOW, np.float32)
+    _span = (np.asarray(OBS_HIGH) - np.asarray(OBS_LOW)).astype(np.float32)
 
     def _norm(self, ts):
         obs = (ts.obs.astype(jnp.float32) - self._low) / self._span

@@ -22,7 +22,7 @@ def pad_oracle(draws: np.ndarray, capacity: int = ORACLE_CAPACITY) -> jnp.ndarra
 def replay_and_compare(trace: ReferenceTrace, config: EnvConfig,
                        check_draw_counts: bool = True,
                        env: PikaZoo | None = None) -> None:
-    """Replay a reference trace through the TPU env in oracle mode and assert
+    """Replay a reference trace through the JAX env in oracle mode and assert
     frame-by-frame equality of obs, rewards, terminations and draw counters.
 
     Pass ``env`` to reuse one PikaZoo instance (and its jit cache) across

@@ -1,9 +1,9 @@
-"""Driver-facing contract of bench.py's orchestration layer.
+"""Contract of bench.py's orchestration layer.
 
-The driver collects the LAST JSON line of `python bench.py` under a hard
+A caller collects the LAST JSON line of `python bench.py` under a hard
 timeout; these tests pin the pieces that protect that contract (best-so-far
-tracking, metric-correct fallbacks, --iters override) without touching a
-device.
+tracking, device fields on every line, no CPU fallback, the attempt cap)
+without touching a device.
 """
 
 import importlib.util
@@ -28,8 +28,6 @@ def _load_bench():
 def test_best_tracker_offers_and_fallback_metric():
     bench = _load_bench()
     best = bench._Best()
-    # Fallback must be re-targetable per orchestration mode.
-    best.set_fallback("ppo_env_steps_per_s_full_train_step_1chip", 1000.0)
     assert best.result is None
     best.offer(None)  # failed rung: ignored
     assert best.result is None
@@ -40,14 +38,66 @@ def test_best_tracker_offers_and_fallback_metric():
     assert best.result["value"] == 9
 
 
-def test_best_tracker_zero_fallback_uses_mode_metric(capsys):
+def test_no_result_exits_nonzero_without_fallback(capsys):
+    """No rung landed: no zero or CPU number stands in for a device one —
+    the run prints no result line and exits non-zero."""
     bench = _load_bench()
-    best = bench._Best()
-    best.set_fallback("env_steps_per_s_aggregate_1chip_computer_ai", 19742.0)
-    best.emit_final()
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["metric"] == "env_steps_per_s_aggregate_1chip_computer_ai"
-    assert out["value"] == 0
+    with pytest.raises(SystemExit) as exc:
+        bench._Best().emit_final()
+    assert exc.value.code == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_orchestrate_fails_when_no_rung_lands(monkeypatch, capsys):
+    import argparse
+
+    bench = _load_bench()
+    monkeypatch.setattr(bench, "refresh_baselines", lambda *a, **k: None)
+    ran = []
+    monkeypatch.setattr(bench, "_attempt",
+                        lambda rung, iters: ran.append(rung) or None)
+    with pytest.raises(SystemExit) as exc:
+        bench._orchestrate(argparse.Namespace(iters=None))
+    assert exc.value.code == 1
+    assert [r["config"] for r in ran] == ["batch", "batch"]
+    assert not hasattr(bench, "_cpu_fallback_attempt")
+    assert capsys.readouterr().out == ""
+
+
+def test_direct_line_carries_device_fields(monkeypatch, capsys):
+    import argparse
+
+    from pikazoo_tpu.utils import device
+
+    bench = _load_bench()
+    monkeypatch.setenv("PIKAZOO_BASELINE_HUMAN", "1000")
+    monkeypatch.setitem(bench._CONFIGS, "batch", (
+        lambda a: (123456.0, {"engine": "stub"}), bench.HEADLINE_METRIC,
+        "human"))
+    monkeypatch.setattr(device, "device_info", lambda: {
+        "platform": "gpu", "device_kind": "NVIDIA H100 80GB HBM3",
+        "device_count": 1, "card": "NVIDIA H100 80GB HBM3",
+        "power_limit": "700.00 W"})
+    bench._run_direct(argparse.Namespace(config="batch", iters=1))
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["value"] == 123456 and line["provenance"] == {
+        "engine": "stub"}
+    for key in ("platform", "device_kind", "device_count", "card",
+                "power_limit"):
+        assert key in line
+
+
+def test_direct_device_rung_fails_without_gpu():
+    """A device rung on the CPU backend fails instead of measuring the
+    CPU."""
+    out = subprocess.run(
+        [sys.executable, _BENCH, "--config", "batch", "--batch", "256",
+         "--steps", "5", "--iters", "1"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert out.returncode != 0
+    assert "no GPU" in out.stderr
+    assert not [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
 
 
 def test_mk_rounds_and_scales():
@@ -55,23 +105,6 @@ def test_mk_rounds_and_scales():
     r = bench._mk("m", 123456.7, 1000.0)
     assert r == {"metric": "m", "value": 123457, "unit": "env-steps/s",
                  "vs_baseline": 123.46}
-
-
-@pytest.mark.slow
-def test_direct_config_emits_single_json_line():
-    """The in-process --config path (what every orchestrated rung execs)
-    prints exactly one parseable JSON line on the CPU backend."""
-    env = dict(os.environ, PIKAZOO_FORCE_CPU="1")
-    out = subprocess.run(
-        [sys.executable, _BENCH, "--config", "batch", "--batch", "256",
-         "--steps", "50", "--iters", "1"],
-        capture_output=True, text=True, timeout=300, env=env)
-    assert out.returncode == 0, out.stderr[-2000:]
-    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
-    assert len(lines) == 1
-    parsed = json.loads(lines[0])
-    assert parsed["metric"] == "env_steps_per_s_aggregate_1chip"
-    assert parsed["value"] > 0
 
 
 def test_batch1_rung_carries_engine_provenance():
@@ -82,22 +115,23 @@ def test_batch1_rung_carries_engine_provenance():
 
     if not ne.fastpath_available():
         pytest.skip("toolchain unavailable")
-    env = dict(os.environ, PIKAZOO_FORCE_CPU="1")
     out = subprocess.run(
         [sys.executable, _BENCH, "--config", "batch1",
          "--steps", "200", "--iters", "1"],
-        capture_output=True, text=True, timeout=300, env=env)
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
     parsed = json.loads(lines[-1])
-    assert parsed["provenance"]["engine"] == "fastpath-c"
+    assert parsed["provenance"] == {"engine": "fastpath-c",
+                                    "host_path": True}
+    assert parsed["platform"] == "cpu"  # a host rung says where it ran
 
 
 def test_batch1_rung_fails_loudly_without_fastpath():
     """When the C fast path cannot build, the rung must ERROR (not bench
     the Python fallback unlabeled) unless explicitly allowed — and the
     allowed fallback must be labeled with the build error."""
-    env = dict(os.environ, PIKAZOO_FORCE_CPU="1",
+    env = dict(os.environ,
                PIKAZOO_NATIVE_CACHE="/tmp/pikazoo_no_toolchain_test",
                PATH="/nonexistent")  # no gcc/g++ resolvable
     out = subprocess.run(
@@ -131,44 +165,18 @@ def test_refresh_baselines_updates_denominators(monkeypatch):
     assert out["ai"] < 1.5 * out["human"]
 
 
-def test_clear_stale_canary_fail(tmp_path, monkeypatch):
-    """A cached NEGATIVE Pallas-canary verdict is dropped (so the bench
-    re-probes in its own uncontended environment); a positive one stays."""
-    import tempfile
-
-    bench = _load_bench()
-    monkeypatch.setattr(tempfile, "gettempdir", lambda: str(tmp_path))
-    cache = tmp_path / "pikazoo_pallas_canary.json"
-
-    cache.write_text(json.dumps({"ok": False, "ts": 0}))
-    bench._clear_stale_canary_fail()
-    assert not cache.exists()
-
-    cache.write_text(json.dumps({"ok": True, "ts": 0}))
-    bench._clear_stale_canary_fail()
-    assert cache.exists()
-
-    cache.write_text("not json")
-    bench._clear_stale_canary_fail()  # malformed: tolerated, left in place
-
-    cache.unlink()
-    bench._clear_stale_canary_fail()  # absent: no-op
-
-
 def test_orchestrate_all_attempt_cap_and_artifact(tmp_path, monkeypatch):
     """--all control flow with _attempt stubbed: rungs that succeed land in
     the artifact in plan order with their config tag; a rung that fails
     DETERMINISTICALLY is retried at most PIKAZOO_BENCH_MAX_ATTEMPTS times
-    (round-4 advisor: unbounded retries could eat the whole budget); the
-    final stdout line re-emits the headline."""
+    (unbounded retries could eat the whole budget); the final stdout line
+    re-emits the headline."""
     import importlib
 
-    monkeypatch.setenv("PIKAZOO_FORCE_CPU", "1")
     monkeypatch.setenv("PIKAZOO_BENCH_MAX_ATTEMPTS", "2")
     import bench as bench_mod
     bench = importlib.reload(bench_mod)
     monkeypatch.setattr(bench, "refresh_baselines", lambda *a, **k: None)
-    monkeypatch.setattr(bench, "_await_device_health", lambda *a, **k: True)
     monkeypatch.chdir(tmp_path)
 
     attempts = {}

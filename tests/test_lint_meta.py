@@ -26,7 +26,7 @@ def _py_files():
             for fn in sorted(filenames):
                 if fn.endswith(".py"):
                     yield os.path.join(dirpath, fn)
-    for fn in ("bench.py", "__graft_entry__.py"):
+    for fn in ("bench.py", "__graft_entry__.py", "chip_smoke.py"):
         yield os.path.join(_REPO, fn)
 
 
@@ -86,3 +86,25 @@ def test_test_files_define_at_least_one_test():
                  if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))]
         if not any(name.startswith("test_") for name in names):
             pytest.fail(f"{fn} defines no test_* functions")
+
+
+def test_no_tpu_only_code_paths():
+    """Nothing imports the Mosaic-TPU Pallas module or branches on a TPU
+    platform: every path runs on the GPU or the CPU."""
+    import re
+
+    patterns = [re.compile(p) for p in (
+        r"pallas\s+import\s+tpu", r"pallas\.tpu", r"pltpu",
+        r"""[=!]=\s*["']tpu["']""", r"""["']tpu["']\s*[=!]=""",
+        r"""in\s*\(\s*["']tpu["']""")]
+    offenders = []
+    for path in _py_files():
+        rel = os.path.relpath(path, _REPO)
+        if not rel.startswith(("pikazoo_tpu", "tools", "bench.py",
+                               "chip_smoke.py")):
+            continue
+        with open(path) as f:
+            for lineno, line in enumerate(f, 1):
+                if any(p.search(line) for p in patterns):
+                    offenders.append(f"{rel}:{lineno}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)

@@ -47,36 +47,6 @@ def test_two_process_distributed_train_step():
 
 
 @pytest.mark.slow
-def test_two_process_distributed_fused_fm_train_step():
-    """The production config-5 program — the feature-major fused Pallas
-    minibatch gradient inside shard_map+psum — across REAL jax.distributed
-    process boundaries (interpret-mode kernel on CPU), not just the
-    single-process mesh of test_train_step_fm_mesh_matches_single."""
-    port = _free_port()
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)
-    procs = [subprocess.Popen(
-        [sys.executable, _TOOL, str(i), "2", str(port), "fm"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for i in range(2)]
-    outs = []
-    for p in procs:
-        try:
-            out, _ = p.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        outs.append(out)
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"process {i} failed:\n{out[-3000:]}"
-        assert "sharded_over=8 devices OK" in out, out[-2000:]
-    losses = {line.split("loss=")[1].split()[0]
-              for out in outs for line in out.splitlines() if "loss=" in line}
-    assert len(losses) == 1, losses
-
-
-@pytest.mark.slow
 def test_four_process_distributed_train_step():
     """Four REAL jax.distributed processes (one virtual device each — 4
     devices on 4 physical cores, no oversubscription): the round-4 verdict
@@ -127,12 +97,11 @@ def test_scaling_harness_emits_table():
 
 
 @pytest.mark.slow
-def test_multihost_soak_short():
+def test_multihost_soak_short(tmp_path):
     """Sustained distributed training (not just one step): 40 back-to-back
     sharded train steps across 2 real jax.distributed processes, finite
     losses throughout and bit-identical replicated losses at every
-    checkpoint (the full artifacts ran 500x2p and 150x4p —
-    tools/multihost_soak.py)."""
+    checkpoint (longer runs: tools/multihost_soak.py)."""
     import json
 
     env = dict(os.environ)
@@ -140,9 +109,9 @@ def test_multihost_soak_short():
     out = subprocess.run(
         [sys.executable, os.path.join(_TOOLS, "multihost_soak.py"),
          "--procs", "2", "--updates", "40", "--envs-per-proc", "128",
-         "--out", "/tmp/pikazoo_soak_test.json"],
+         "--out", str(tmp_path / "soak.json")],
         timeout=420, capture_output=True, text=True, env=env)
     assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
-    rec = json.loads(open("/tmp/pikazoo_soak_test.json").read())
+    rec = json.loads((tmp_path / "soak.json").read_text())
     assert rec["loss_identical_across_processes"] is True
     assert rec["updates"] == 40 and rec["procs"] == 2

@@ -1,8 +1,8 @@
 """Structural performance contracts (VERDICT r2 item 5).
 
-The throughput numbers in BASELINE.md are only defended by re-benching on
-hardware; these tests pin the *compiled program shape* on CPU so a refactor
-cannot silently reintroduce the known perf-bug classes:
+Throughput is only defended by re-benching on the card; these tests pin
+the *compiled program shape* on CPU so a refactor cannot silently
+reintroduce the known perf-bug classes:
 
 * a padded/materialized obs tensor in the env or learner path (the 15x
   blowup class documented in ``envs/observations.py``) — caught by the
@@ -82,12 +82,11 @@ def test_ai_step_cost_envelope():
 
 
 def test_train_step_cost_envelope():
-    """Full PPO train step (XLA autodiff path — the fused kernel is a TPU
-    custom call whose internals cost_analysis cannot see)."""
+    """Full PPO train step (rollout, GAE and the XLA autodiff update)."""
     from pikazoo_tpu.train import PPOConfig, make_ppo_trainer
 
     env = PikaZoo(EnvConfig(auto_reset=True))
-    cfg = PPOConfig(num_envs=256, rollout_length=16, fused_update="off")
+    cfg = PPOConfig(num_envs=256, rollout_length=16)
     init_fn, train_step, _ = make_ppo_trainer(env, cfg)
     runner = init_fn(jax.random.key(0))
     compiled = jax.jit(train_step).lower(runner).compile()
@@ -150,7 +149,7 @@ def test_meshed_ppo_rollout_has_zero_collectives():
     env = PikaZoo(EnvConfig(auto_reset=True))
     mesh = make_env_mesh()
     cfg = PPOConfig(num_envs=64, rollout_length=8, num_minibatches=2,
-                    update_epochs=1, fused_update="off")
+                    update_epochs=1)
     init_fn, train_step, _ = make_ppo_trainer(env, cfg, mesh=mesh)
     runner = init_fn(jax.random.key(0))
     runner = runner._replace(
@@ -183,7 +182,7 @@ def test_meshed_train_step_has_gradient_allreduce():
     env = PikaZoo(EnvConfig(auto_reset=True))
     mesh = make_env_mesh()
     cfg = PPOConfig(num_envs=64, rollout_length=8, num_minibatches=2,
-                    update_epochs=1, fused_update="off")
+                    update_epochs=1)
     init_fn, train_step, _ = make_ppo_trainer(env, cfg, mesh=mesh)
     runner = init_fn(jax.random.key(0))
     runner = runner._replace(env_state=shard_batch(runner.env_state, mesh))

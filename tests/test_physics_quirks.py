@@ -133,8 +133,7 @@ def test_landing_sim_unroll_invariance():
     ref_e, ref_c = jax.jit(lambda *a: landing_sims_any(*a, unroll=1))(
         x, y, vx, vy)
     # 100+ skipped: XLA's CPU backend takes minutes to compile a while body
-    # with ~100 unrolled sub-iterations (the TPU backend compiles 256 in
-    # seconds); 32 is the production default for both loop flavors.
+    # with ~100 unrolled sub-iterations; 32 is the lax path's default.
     for unroll in (3, 8, 32):
         e, c = jax.jit(lambda *a, u=unroll: landing_sims_any(*a, unroll=u))(
             x, y, vx, vy)

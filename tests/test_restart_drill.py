@@ -29,10 +29,10 @@ def _launch(tmp_path, updates):
         "--checkpoint-dir", str(tmp_path / "ckpt"),
         "--checkpoint-every", "2",
         "--metrics", str(tmp_path / f"metrics_{updates}.jsonl"),
-        "--fused-update", "off", "--seed", "3",
+        "--seed", "3",
     ]
     env = dict(os.environ)
-    env["PIKAZOO_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     return subprocess.Popen(
         cmd, cwd=_REPO, env=env, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)

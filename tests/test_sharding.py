@@ -1,6 +1,7 @@
 """Multi-device sharding on the 8-device virtual CPU mesh."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -68,3 +69,33 @@ def test_ppo_train_step_on_mesh():
     assert np.isfinite(float(metrics.total_loss))
     # Env state stayed sharded across the whole train step.
     assert len(runner.env_state.scores.sharding.device_set) == 8
+
+
+@pytest.mark.parametrize("error, tolerated", [
+    (RuntimeError("distributed.initialize should only be called once."),
+     True),
+    (RuntimeError("jax.distributed.initialize() must be called before any "
+                  "JAX computations are executed."), False),
+    (ValueError("coordinator_address should be defined."), False),
+])
+def test_init_distributed_tolerates_only_a_second_call(monkeypatch, error,
+                                                       tolerated):
+    """A failed multi-process start raises; only "already initialized" is
+    a no-op, so a run never falls back to a single process unnoticed."""
+    from pikazoo_tpu.parallel import init_distributed
+
+    seen = []
+
+    def fake_initialize(**kwargs):
+        seen.append(kwargs)
+        raise error
+
+    monkeypatch.setattr(jax.distributed, "initialize", fake_initialize)
+    kwargs = dict(coordinator_address="localhost:1234", num_processes=2,
+                  process_id=0)
+    if tolerated:
+        init_distributed(**kwargs)
+    else:
+        with pytest.raises(type(error)):
+            init_distributed(**kwargs)
+    assert seen == [kwargs]

@@ -195,8 +195,8 @@ def test_inverse_cdf_sampling_distribution():
 
 
 def test_apply_fm_matches_module_apply():
-    """Feature-major forward == flax module forward (same bf16 operands;
-    only MXU accumulation order differs)."""
+    """Feature-major forward == ActorCritic.apply (same bf16 operands;
+    only the matmul accumulation order differs)."""
     import jax
     import jax.numpy as jnp
     import numpy as np

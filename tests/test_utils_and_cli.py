@@ -41,17 +41,22 @@ def test_metrics_logger_jsonl(tmp_path):
 def test_train_cli_smoke(tmp_path):
     from pikazoo_tpu.train import run as train_run
     metrics_path = str(tmp_path / "metrics.jsonl")
-    train_run.main([
+    final = train_run.main([
         "--num-envs", "8", "--rollout-length", "8", "--updates", "2",
         "--simplify-actions", "--metrics", metrics_path,
     ])
     lines = [json.loads(line) for line in open(metrics_path)]
-    # One provenance header (resolved update-kernel / predictor dispatch)
-    # followed by one metrics record per update.
+    # One header (resolved predictor dispatch, device fields, compile time
+    # and memory) followed by one metrics record per update.
     assert len(lines) == 3
-    assert lines[0]["provenance"]["fused_update"] in ("fm", "row", "xla")
+    assert lines[0]["provenance"]["platform"] == "cpu"
+    assert lines[0]["provenance"]["device_count"] == len(jax.devices())
     assert "predictor" in lines[0]["provenance"]
+    assert lines[0]["compile_s"] > 0
+    assert lines[0]["memory"]["temp_bytes"] >= 0
     assert np.isfinite(lines[-1]["loss"])
+    # main() hands back the last update's metrics as host numbers.
+    assert float(final.total_loss) == lines[-1]["loss"]
 
 
 def test_train_cli_checkpoint_resume(tmp_path):

@@ -1,9 +1,9 @@
 """Training-quality A/B: PPO update_epochs at learner scale.
 
-The config-5 roofline audit (docs/ppo_roofline.md) shows the default
-4-epoch recipe is MXU-floor-bound; fewer epochs buy throughput linearly IF
-training quality holds.  At 2B rows/update the minibatch gradient noise is
-tiny, so the textbook 4 epochs is plausibly overkill.  This A/B trains
+The update phase scales with the number of epochs, so fewer epochs buy
+throughput IF training quality holds.  At 2B rows/update the minibatch
+gradient noise is tiny, so the textbook 4 epochs is plausibly overkill.
+This A/B trains
 vs-the-rule-AI from scratch for each epochs setting (same seed, same env
 steps per update) and logs win-rate-vs-env-steps curves.
 

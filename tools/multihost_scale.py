@@ -1,25 +1,19 @@
-"""Multi-host scaling measurement: aggregate env-steps/s vs process count.
+"""Multi-process scaling on the CPU: aggregate env-steps/s vs process count.
 
-One command emits a scaling table over N-process virtual "pod slices" on CPU
-(each process = one simulated host with D local devices, joined through the
-REAL ``jax.distributed`` runtime over localhost — the same code path a
-v5e pod slice runs, SURVEY N3/N4):
+One command emits a scaling table over N-process virtual clusters on the
+CPU (each process = one simulated host with D local devices, joined through
+the REAL ``jax.distributed`` runtime over localhost, SURVEY N3/N4):
 
     python tools/multihost_scale.py                 # 1 and 2 "hosts"
     python tools/multihost_scale.py --procs 1 2 4   # custom ladder
     python tools/multihost_scale.py --mode ppo      # full PPO train step
 
-On a real multi-host slice, run the child directly on every host with
-``--real`` (coordinator/process-id come from the TPU environment):
-
-    python tools/multihost_scale.py --real --batch-per-device 32768
-
 The env step is embarrassingly parallel over the ``env`` mesh axis, so the
 expected scaling is linear; the parent prints per-rung aggregate steps/s and
-the efficiency vs linear extrapolation of the 1-process rung.  (CPU rungs
-share physical cores, so CPU efficiency is a *correctness* signal — the mesh
-machinery adds no cross-host traffic to the env step — not a perf claim;
-the real-slice mode is the perf harness.)
+the efficiency vs linear extrapolation of the 1-process rung.  CPU rungs
+share physical cores, so the efficiency is a *correctness* signal — the
+mesh machinery adds no cross-host traffic to the env step — not a device
+measurement.
 """
 
 import argparse
@@ -34,22 +28,17 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def child(process_id: int, num_processes: int, port: int,
           devices_per_proc: int, batch_per_device: int, steps: int,
-          real: bool, mode: str = "env") -> None:
-    if not real:
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={devices_per_proc}")
+          mode: str = "env") -> None:
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "")
+        + f" --xla_force_host_platform_device_count={devices_per_proc}")
     sys.path.insert(0, _REPO)
     import jax
 
-    if not real:
-        jax.config.update("jax_platforms", "cpu")
-        jax.distributed.initialize(
-            coordinator_address=f"127.0.0.1:{port}",
-            num_processes=num_processes, process_id=process_id)
-    else:
-        from pikazoo_tpu.parallel import init_distributed
-        init_distributed()
+    jax.config.update("jax_platforms", "cpu")
+    jax.distributed.initialize(
+        coordinator_address=f"127.0.0.1:{port}",
+        num_processes=num_processes, process_id=process_id)
 
     import jax.numpy as jnp
 
@@ -79,26 +68,14 @@ def child(process_id: int, num_processes: int, port: int,
         runner, metrics = step(runner)  # compile
         jax.block_until_ready(metrics.total_loss)
 
-        def _sync(tree):
-            # Host transfer: block_until_ready is not a reliable fence on
-            # remote-attached TPU backends (see bench.py::_sync).  Fetch an
-            # ADDRESSABLE shard: on a multi-process mesh a device_get of
-            # the global array raises (shards on other hosts are not
-            # addressable), and one local shard is a sufficient fence.
-            import numpy as _np
-            leaf = jax.tree.leaves(tree)[0]
-            if getattr(leaf, "addressable_shards", None):
-                leaf = leaf.addressable_shards[0].data
-            _ = _np.asarray(jax.device_get(leaf)).reshape(-1)[:1]
-
         def timed(fn, *args, reps=3):
             out = fn(*args)  # warm (and compile on first use)
-            _sync(out)
+            jax.block_until_ready(out)
             best = float("inf")
             for _ in range(reps):
                 t0 = time.perf_counter()
                 out = fn(*args)
-                _sync(out)
+                jax.block_until_ready(out)
                 best = min(best, time.perf_counter() - t0)
             return best
 
@@ -123,8 +100,8 @@ def child(process_id: int, num_processes: int, port: int,
                 roll, runner.params, runner.env_state, runner.last_obs,
                 runner.key)
 
-            # One minibatch of the trainer's own update program (grads incl.
-            # the mesh psum when fused; GSPMD all-reduce otherwise).
+            # One minibatch of the trainer's own update program (grads with
+            # the all-reduce GSPMD inserts).
             (_, traj) = roll(runner.params, runner.env_state,
                              runner.last_obs, runner.key)
             t_mb = cfg.rollout_length // cfg.num_minibatches
@@ -242,20 +219,14 @@ def main() -> None:
     parser.add_argument("--pin-cores", action="store_true",
                         help="taskset each child to its own physical core "
                              "(clean CPU scaling: no core oversubscription)")
-    parser.add_argument("--real", action="store_true",
-                        help="run as one host of a real multi-host slice")
     parser.add_argument("--_child", nargs=3, type=int, metavar="X",
                         help="internal: process_id num_processes port")
     args = parser.parse_args()
 
-    if args.real:
-        child(0, 0, 0, args.devices_per_proc, args.batch_per_device,
-              args.steps, real=True, mode=args.mode)
-        return
     if args._child is not None:
         pid, nproc, port = args._child
         child(pid, nproc, port, args.devices_per_proc,
-              args.batch_per_device, args.steps, real=False, mode=args.mode)
+              args.batch_per_device, args.steps, mode=args.mode)
         return
 
     results = []

@@ -4,8 +4,8 @@ Launched once per "host" (see tests/test_multihost.py): each process forces
 the CPU backend with 4 local virtual devices, joins a 2-process distributed
 runtime over localhost, builds the global 8-device env mesh, and runs one
 sharded PPO train step — exercising cross-process gradient all-reduces and
-global-mesh sharding exactly as a v5e-16 pod slice would (SURVEY N3/N4),
-not just the single-process dry run.
+global-mesh sharding as a multi-process GPU run would (SURVEY N3/N4), not
+just the single-process dry run.
 """
 
 import os
@@ -23,8 +23,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 
-def main(process_id: int, num_processes: int, port: int,
-         mode: str = "autodiff") -> None:
+def main(process_id: int, num_processes: int, port: int) -> None:
     jax.distributed.initialize(
         coordinator_address=f"127.0.0.1:{port}",
         num_processes=num_processes,
@@ -42,13 +41,8 @@ def main(process_id: int, num_processes: int, port: int,
     from pikazoo_tpu.train import PPOConfig, make_ppo_trainer
 
     mesh = make_env_mesh(global_devices)
-    # mode "fm" runs the minibatch gradient through the feature-major fused
-    # Pallas kernel (interpret mode on CPU) inside the shard_map+psum mesh
-    # path — the exact production config-5 program, now across REAL
-    # jax.distributed process boundaries rather than a single-process mesh.
     cfg = PPOConfig(num_envs=4 * len(global_devices), rollout_length=8,
-                    num_minibatches=2, update_epochs=1, hidden=(32,),
-                    fused_update="fm" if mode == "fm" else "auto")
+                    num_minibatches=2, update_epochs=1, hidden=(32,))
     env = PikaZoo(EnvConfig(winning_score=2))
     init_fn, train_step, _ = make_ppo_trainer(env, cfg, mesh=mesh)
 
@@ -78,5 +72,4 @@ def main(process_id: int, num_processes: int, port: int,
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-         sys.argv[4] if len(sys.argv) > 4 else "autodiff")
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]))
